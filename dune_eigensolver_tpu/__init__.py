@@ -1,6 +1,6 @@
-"""dune_eigensolver_tpu — a TPU-native sparse eigensolver framework.
+"""dune_eigensolver_tpu — a sparse eigensolver framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation with the capabilities of the
+A JAX/XLA/Pallas implementation with the capabilities of the
 reference C++ DUNE module ``normallytangent/dune-eigensolver``:
 
 * tall-skinny multivector operations (blocked orthonormalization, blocked
@@ -15,10 +15,10 @@ reference C++ DUNE module ``normallytangent/dune-eigensolver``:
   kernels_cpp.hh:660-755
 * oracle validation against scipy.sparse.linalg and analytic Laplacian
   spectra — reference: arpack_geneo_wrapper.hh, src/dune-eigensolver.cc:437-446
-* beyond the reference: row-partitioned multi-chip execution over a
+* beyond the reference: row-partitioned multi-device execution over a
   ``jax.sharding.Mesh`` with halo exchange + allreduce orthogonalization.
 
-The compute path is JAX/XLA with Pallas kernels for the hot ops; host-side
+The compute path is JAX/XLA with a Pallas kernel for the DIA SpMM; host-side
 setup (format conversion, level scheduling, partitioning) has a native C++
 fast path (see ``native/``).
 """

@@ -4,8 +4,8 @@ The reference converts wall time to GFLOP/s and arithmetic intensity with
 hand-derived cost models (flops_orthonormalize kernels_cpp.hh:98-106,
 bytes_orthonormalize_naive :108-116, bytes_orthonormalize_blocked :157-175;
 SpMM flops = 2*n_iter*m*nnz, src/dune-eigensolver.cc:353-373). Same idea
-here, with byte models matching the TPU data movement (f32 by default, one
-streaming pass per operand).
+here, with byte models matching the device data movement (f32 by default,
+one streaming pass per operand).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def flops_spmm(nnz: int, m: int) -> float:
 
 def bytes_spmm_dia(n: int, ndiag: int, m: int, itemsize: int = 4) -> float:
     """Speed-of-light DIA SpMM traffic: each diagonal read once, X read once,
-    Y written once (the model bench.py's vs_baseline is defined against)."""
+    Y written once (the byte model bench.py's rates are defined against)."""
     return itemsize * (ndiag * n + 2.0 * n * m)
 
 

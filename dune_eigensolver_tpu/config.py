@@ -6,8 +6,8 @@ file read first, then overridden by ``key=value`` command-line arguments
 ``ev.tol``. This reproduces those semantics on ``configparser``.
 
 Default keys mirror src/dune-eigensolver.ini:13-31 (sections [grid] [mv]
-[ev] [parallel] [mgs]), with TPU-specific additions kept in their own keys
-so a reference ini file parses unchanged.
+[ev] [parallel] [mgs]), with this framework's additions kept in their own
+keys so a reference ini file parses unchanged.
 """
 
 from __future__ import annotations
@@ -16,11 +16,11 @@ import configparser
 from typing import Any, Dict, Iterable, Optional
 
 #: defaults mirroring src/dune-eigensolver.ini (values quoted at SURVEY.md §2
-#: "Config system"); TPU additions: ev.dtype, ev.inverse, ev.block,
+#: "Config system"); additions: ev.dtype, ev.inverse, ev.block,
 #: parallel.ndevices, ev.n3d (3D problem switch), ev.problem
 #: (geneo|elasticity operand pair), ev.dist_inner (schwarz|cg for the
-#: general dist drivers), ev.compile_cache[_dir] (persistent executable
-#: cache, default on)
+#: general dist drivers), ev.compile_cache (persistent executable cache,
+#: default on)
 DEFAULTS: Dict[str, Dict[str, Any]] = {
     "grid": {"N": 200, "overlap": 3},
     "mv": {"n": 32, "m": 16},

@@ -1,21 +1,21 @@
 """Distributed geometric-multigrid V-cycle preconditioner for the sharded
-LOBPCG driver (dist/sharded.py) — the north-star recipe at pod scale.
+LOBPCG driver (dist/sharded.py) — the north-star recipe on a mesh.
 
-The single-chip MG engine (factorize/multigrid.py) is the fastest measured
-preconditioner for the structured-stencil north-star problem (BASELINE.md:
-one V(1,1) bf16 cycle, 3.0 s for the 10M-dof 3D solve). This module runs the
+The single-device MG engine (factorize/multigrid.py) is the preconditioner
+of the structured-stencil north-star recipe (one V(1,1) bf16 cycle). This
+module runs the
 same mathematical cycle under ``shard_map`` over a row-partitioned (z-slab)
 operator with ONE collective per cycle:
 
 * **fine level — partitioned**: damped-Jacobi smoothing and the residual go
-  through the engine's halo-exchange Pallas SpMM (``_ShardEngine.apply``),
+  through the engine's halo-exchange SpMM (``_ShardEngine.apply``),
   exactly the solver hot path; nothing new crosses shard boundaries.
 * **semi-coarsening — local**: full-weighting restriction over the NON-
   partitioned grid axes (x, y in 3D) is shard-local, shrinking the residual
   4x (3D) before any communication.
 * **one ``all_gather``** along the slab axis replicates the semi-coarse
   residual (m, Nz, Ny/2, Nx/2) on every shard — for the 10M-dof block that
-  is the only ICI traffic of the whole cycle.
+  is the only inter-device traffic of the whole cycle.
 * **coarse levels — replicated**: the slab-axis restriction and the entire
   coarse V-cycle recursion (``factorize.multigrid._vcycle_coarse``: matrix-
   free rediscretized stencils, coarsest-level f32 CG) run identically on

@@ -27,12 +27,12 @@ def default_inverse_factory(A_int, **kw):
 
     * DIA operators with moderate bandwidth (2D stencils: bw = N = sqrt(n))
       -> block-banded partitioned-inverse factors solved by a scan of dense
-      MXU matmuls (factorize.banded) — the TPU-native direct path;
+      matmuls (factorize.banded) — the on-device direct path;
     * DIA with wide bandwidth (3D stencils: bw = N^2) -> Chebyshev-
       preconditioned Jacobi-CG (factorize.cg + factorize.chebyshev) — band
       storage would be O(n * N^2) there, and 3D direct factorizations fill
       catastrophically in any ordering; the Krylov engines run on the
-      guarded Pallas SpMM when the operand is a PaddedDIA;
+      guarded SpMM when the operand is a PaddedDIA;
     * other formats -> reverse-Cuthill-McKee bandwidth reduction + the same
       banded engine (factorize.reordered); if RCM cannot confine the band,
       Jacobi-CG.
@@ -44,12 +44,8 @@ def default_inverse_factory(A_int, **kw):
     from dune_eigensolver_tpu.factorize.banded import _DEVICE_BW_MAX
     from dune_eigensolver_tpu.factorize.reordered import rcm_banded_inverse_factory
     from dune_eigensolver_tpu.kernels.dia_spmm import PaddedDIA
-    from dune_eigensolver_tpu.kernels.gather_spmm import WindowedBSR, WindowedELL
     from dune_eigensolver_tpu.sparse.formats import DIAMatrix
 
-    if isinstance(A_int, (WindowedELL, WindowedBSR)):
-        # gather-kernel internal operand: factorize from the logical matrix
-        A_int = A_int.to_logical()
     if isinstance(A_int, (DIAMatrix, PaddedDIA)):
         bw = max(abs(o) for o in A_int.offsets)
         if bw <= _DEVICE_BW_MAX:

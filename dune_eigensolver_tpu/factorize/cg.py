@@ -2,8 +2,8 @@
 
 The reference applies ``A'^-1`` through an externalized UMFPACK LU
 factorization (umfpacktools.hh + kernels_cpp.hh:660-755). A sparse triangular
-solve is row-sequential and fights the TPU's wide-vector model (SURVEY.md §7
-"hard parts"), so the TPU-native default for SPD shifted operators is an
+solve is row-sequential and fights a wide-vector device (SURVEY.md §7
+"hard parts"), so the on-device default for SPD shifted operators is an
 inner Krylov solve: Jacobi-preconditioned CG run simultaneously on all m
 right-hand sides (per-vector step lengths), entirely under ``jit`` with
 ``lax.while_loop``. Inverse iteration tolerates inexact inverse applications,
@@ -13,7 +13,7 @@ so ``rtol`` can be far looser than the eigensolver tolerance.
 multivector — including the guarded persistent layout, whose zero guard
 columns pass through every axpy/dot untouched (the Jacobi diagonal is
 guarded with ones so elementwise divisions stay finite) — so every inner
-SpMM runs the Pallas rolling-cache kernel. The factory is marked
+SpMM runs the guarded-layout DIA kernel. The factory is marked
 ``internal`` and its solve fn ``layout_t`` (see solvers/engine.py).
 
 The level-scheduled direct solve (host_lu.py) remains available as the
@@ -150,7 +150,7 @@ def cg_inverse_factory(
 
     ``inverse(A_int)`` yields a jittable transposed-layout solve (marked
     ``layout_t``); the factory itself is marked ``internal`` so the solver
-    wrappers hand it the guarded operand and the inner SpMMs run the Pallas
+    wrappers hand it the guarded operand and the inner SpMMs run the DIA
     kernel. ``apply_a`` overrides the operator application (e.g. a sharded
     SpMM closing over local shards inside shard_map; transposed layout).
 
@@ -180,7 +180,7 @@ def cg_inverse_factory(
             return solve
 
         # closure-free pair: the operand is threaded through jit as an
-        # argument (a closure would serialize it into every compile RPC),
+        # argument (a closure would embed it as a constant in every trace),
         # and the solve fn is memoized so the solver cores' jit caches
         # (keyed on the fn's identity) hit across factory calls
         return (

@@ -1,19 +1,19 @@
 """Chebyshev polynomial inverse application (preconditioner engine).
 
 The reference applies exact inverses through UMFPACK factors
-(umfpacktools.hh:16-220, kernels_cpp.hh:660-755). On TPU the matrix-free
-alternatives are Jacobi-CG (factorize/cg.py) and this module: a fixed-degree
+(umfpacktools.hh:16-220, kernels_cpp.hh:660-755). On the device the
+matrix-free alternatives are Jacobi-CG (factorize/cg.py) and this module: a fixed-degree
 Chebyshev approximation of ``A^-1`` on a spectral interval. Per degree it
 costs one SpMM plus three axpys — and, unlike CG, **zero inner dot
 products**, so there are no full-array reduction passes and no
 data-dependent control flow: the whole application is one statically
 unrolled ``fori_loop`` that XLA fuses aggressively. That makes it the
 preferred LOBPCG preconditioner on bandwidth-bound problems (the 10M-dof 3D
-Laplacian run spends most of its HBM traffic inside the preconditioner).
+Laplacian run spends most of its memory traffic inside the preconditioner).
 
 Operates natively on the TRANSPOSED (m, n*) multivector (guarded layout
-included), so every SpMM inside the polynomial runs the Pallas
-rolling-cache kernel; the factory is marked ``internal`` (solvers/engine.py)
+included), so every SpMM inside the polynomial runs the guarded-layout
+kernel; the factory is marked ``internal`` (solvers/engine.py)
 and receives the guarded operand from the solver wrappers.
 
 Spectral bounds come from one device-side blocked power iteration on the
@@ -44,20 +44,19 @@ from dune_eigensolver_tpu.sparse.spmm import spmm_t
 
 
 def _internal_width(A_int) -> int:
-    """Internal (padded) row width of an operand: Windowed containers carry
-    it explicitly, PaddedDIA/DIA expose it as data's lane dim."""
-    w = getattr(A_int, "width", None)
-    if isinstance(w, int):
-        return w
-    if hasattr(A_int, "data"):
-        return A_int.data.shape[-1]
+    """Internal row width of an operand: the guarded layout's width for a
+    PaddedDIA, the row count n for every plain container (DIA, ELL, BSR)."""
+    from dune_eigensolver_tpu.kernels.dia_spmm import PaddedDIA
+
+    if isinstance(A_int, PaddedDIA):
+        return A_int.data.shape[1]
     return A_int.shape[0]
 
 
 def _power_lmax_t(apply_a, inv_diag, n_int, dtype, iters, gram_reduce, fold=None):
     """Largest eigenvalue of ``D^-1 A`` by blocked power iteration
-    (device-side, transposed layout: an 8-row block costs the same as one
-    vector on TPU and is far more robust to an unlucky start).
+    (device-side, transposed layout: an 8-row block costs about as much as
+    one vector and is far more robust to an unlucky start).
 
     Random N(0,1) start: the top mode of diffusion-type operators is highly
     oscillatory, and a smooth deterministic start is nearly orthogonal to it
@@ -110,7 +109,7 @@ def chebyshev_apply_t(apply_a, R, lmin, lmax, degree, inv_diag=None):
     # the rho recurrence stays in the scalars' own (f32) precision; cast
     # only at the array multiply so a bf16 iterate is not silently promoted
     # back to f32 (which would both break the fori_loop carry dtype and
-    # forfeit the halved HBM traffic the caller asked for)
+    # forfeit the halved memory traffic the caller asked for)
     def _c(s):
         return jnp.asarray(s).astype(R.dtype)
 
@@ -161,7 +160,7 @@ def chebyshev_inverse_factory(
     apply_a / gram_reduce: distributed hooks (sharded SpMM / psum,
     transposed layout).
     dtype: stream the polynomial recurrence in this dtype (casting in/out
-    at the boundary) — ``jnp.bfloat16`` halves the HBM traffic of every
+    at the boundary) — ``jnp.bfloat16`` halves the memory traffic of every
     SpMM+axpy term; preconditioner-grade, same caveats as
     ``cg_inverse_factory(dtype=...)``. Single-chip pair path only.
     """
@@ -242,7 +241,7 @@ def cheb_cg_inverse_factory(
     preconditioner the outer iteration count drops by ~d while each outer
     step stays dot-free inside the polynomial — far fewer full-array
     reduction passes on a bandwidth-bound operator (the preconditioner
-    dominates HBM traffic on the 10M-dof 3D run). The polynomial is FIXED
+    dominates memory traffic on the 10M-dof 3D run). The polynomial is FIXED
     (constant bounds, odd degree -> SPD), as CG requires of its
     preconditioner. Same (aux, memoized-fn) conventions as the other
     factories; replaces the reference's exact UMFPACK inverse

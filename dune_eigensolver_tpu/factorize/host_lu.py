@@ -1,7 +1,7 @@
 """Host-side sparse LU factorization externalized to device arrays, plus a
-level-scheduled multi-RHS triangular solve that runs on TPU.
+level-scheduled multi-RHS triangular solve that runs on the device.
 
-TPU-native equivalent of the reference's UMFPACK bridge + trisolve kernel:
+Equivalent of the reference's UMFPACK bridge + trisolve kernel:
 
 * ``UMFPackFactorizedMatrix`` (umfpacktools.hh:16-220) converts the operand
   to flat CSC, factorizes with ``umfpack_dl_*`` and *externalizes* the
@@ -12,7 +12,8 @@ TPU-native equivalent of the reference's UMFPACK bridge + trisolve kernel:
 * ``matmul_inverse_tallskinny_blocked`` (kernels_cpp.hh:660-755) then solves
   scale -> P-permute -> L forward (row-sequential) -> U backward
   (column-sequential) -> Q-permute for 8 RHS at a time. The row-by-row
-  dependence chain does not map to TPU (SURVEY.md §7), so rows are grouped
+  dependence chain does not map to a wide-vector device (SURVEY.md §7), so
+  rows are grouped
   into dependency *levels* on the host; each level is one data-parallel
   gather + FMA + scatter on device, and ``lax.fori_loop`` walks the levels.
 
@@ -267,7 +268,8 @@ def _chunked_trisolve(F: _TriFactor, b: jax.Array, dinv: Optional[jax.Array]):
         cols = F.cols[c]  # (C, kmax)
         vals = F.vals[c]
         deps = x[cols]  # (C, kmax, m) gather
-        acc = jnp.einsum("ck,ckm->cm", vals, deps)
+        acc = jnp.einsum("ck,ckm->cm", vals, deps,
+                         precision=jax.lax.Precision.HIGHEST)
         xc = b_pad[rows] - acc
         if dinv_pad is not None:
             xc = xc * dinv_pad[rows][:, None]

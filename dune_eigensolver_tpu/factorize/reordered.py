@@ -2,11 +2,12 @@
 
 The reference hands any BCRS matrix to UMFPACK's fill-reducing ordering
 (umfpacktools.hh:100-111). Fill-reducing orderings produce scattered
-triangular factors whose row-sequential solve is hostile to the TPU; the
-TPU-native route is the opposite trade: **reverse Cuthill-McKee** confines
+triangular factors whose row-sequential solve is hostile to a wide-vector
+device; the on-device route is the opposite trade: **reverse Cuthill-McKee**
+confines
 the matrix to a band, the no-pivot band factorization fills only inside the
 band, and the solve becomes the block-banded partitioned-inverse scan of
-dense MXU matmuls (factorize/banded.py) — more flops, perfectly regular.
+dense matmuls (factorize/banded.py) — more flops, perfectly regular.
 
 ``rcm_banded_inverse_factory`` returns the standard closure-free
 ``(aux, fn)`` pair with the row/column permutation folded in:
@@ -31,15 +32,25 @@ def _to_scipy_csr(A):
     return sp.csr_matrix(A)
 
 
+def _bandwidth(S) -> int:
+    coo = S.tocoo()
+    return int(np.abs(coo.row - coo.col).max()) if coo.nnz else 0
+
+
 def rcm_bandwidth(A) -> Tuple[np.ndarray, int]:
-    """(permutation, bandwidth after RCM) for any sparse operand."""
-    import scipy.sparse as sp
+    """(permutation, bandwidth) for any sparse operand: the RCM ordering,
+    or the identity when the given ordering is no wider. Lexicographic
+    grid operators are already banded, and RCM's diagonal level sets
+    double their bandwidth (``elasticity_2d(512)``: 1025 -> 2039, and 21
+    stored diagonals -> 4079)."""
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
     S = _to_scipy_csr(A)
+    natural = _bandwidth(S)
     perm = np.asarray(reverse_cuthill_mckee(S, symmetric_mode=True))
-    Sp = S[perm][:, perm].tocoo()
-    bw = int(np.abs(Sp.row - Sp.col).max()) if Sp.nnz else 0
+    bw = _bandwidth(S[perm][:, perm])
+    if natural <= bw:
+        return np.arange(S.shape[0]), natural
     return perm, bw
 
 
@@ -64,8 +75,7 @@ def rcm_banded_inverse_factory(
     if perm is None:
         perm, bw = rcm_bandwidth(S)
     else:
-        Sp_ = S[perm][:, perm].tocoo()
-        bw = int(np.abs(Sp_.row - Sp_.col).max()) if Sp_.nnz else 0
+        bw = _bandwidth(S[perm][:, perm])
     if bw > _DEVICE_BW_MAX:
         raise ValueError(
             f"rcm_banded_inverse_factory: RCM bandwidth {bw} exceeds "

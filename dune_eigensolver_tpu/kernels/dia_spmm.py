@@ -1,40 +1,22 @@
-"""Pallas TPU kernel: tall-skinny DIA SpMM.
+"""Tall-skinny DIA SpMM on the persistent zero-guarded layout.
 
-The hot kernel of the framework — TPU-native replacement for the reference's
-``matmul_sparse_tallskinny_{blocked,avx2_b8,neon_b8}`` (kernels_cpp.hh:626,
-kernels_avx2.hh:1021, kernels_neon.hh:1314). The reference streams the matrix
-once per 8-RHS block with the RHS block contiguous in memory; here the
-multivector is stored *transposed* as (m, n) — m on sublanes (8 = one f32
-sublane group), n on lanes — the direct TPU analogue of that layout, and the
-matrix diagonals stream through VMEM exactly once.
-
-Design (one unified kernel, ``padded_spmm``):
+The hot operation of the stencil solvers — the counterpart of the
+reference's ``matmul_sparse_tallskinny_{blocked,avx2_b8,neon_b8}``
+(kernels_cpp.hh:626, kernels_avx2.hh:1021, kernels_neon.hh:1314). The
+multivector is stored *transposed* as (m, n), so each diagonal contributes
+one constant-offset slice of X times a per-column coefficient row.
 
 * the multivector lives persistently in a zero-guarded buffer
   (``PaddedLayout``): logical column i at buffer column i + G, zeros in the
-  guards. Chained applications Y = A X, X = A Y, ... never re-pad — guard
-  tiles only rewrite zeros, interior tiles compute. This mirrors how the
-  reference streams its MultiVector repeatedly without re-marshalling
-  (kernels_cpp.hh:626-657 operate in place on preallocated blocks).
-* the operator is pre-padded ONCE into the same geometry (``PaddedDIA``),
-  so the iteration loop moves exactly: diagonals once, X once (+ halo
-  overlap), Y once — the speed-of-light traffic model.
-* diagonal offsets beyond the rolling cache (wide-band 3D stencils:
-  {-N^2}, {-N..N}, {+N^2}) are grouped by their tile quotient ``off // T``;
-  each group streams X once more through an EXTRA auto-pipelined blocked
-  input whose index map is shifted by the quotient, feeding a 2-slot
-  rolling VMEM window. Mosaic's pipeliner does all the DMA/double
-  buffering — no manual cross-grid-step async copies (those are not
-  reliably supported and produced silent corruption / backend errors on
-  v5e). A narrow band has no far groups and streams X exactly once.
-* each diagonal contributes a static lane-shifted slice of its (2- or
-  3-slot) window times the per-row coefficient — pure VPU FMAs, no
-  gathers.
-
-Measured (TPU v5e, n=4.2M 2D 5-point, m=8): the per-call-padding variant of
-round 1 ran at ~312 GB/s effective because every call copied X (and the
-padded variant even re-padded the 84 MB diagonal array per call); the
-persistent geometry removes those copies entirely.
+  guards. Chained applications Y = A X, X = A Y, ... never re-pad; the
+  output guards are written as zeros, so the invariant holds across a
+  solver loop.
+* the operator is pre-padded ONCE into the same geometry (``PaddedDIA``).
+* ``padded_spmm`` is a Pallas kernel on the Triton route: one program per
+  column tile loads each coefficient once for all m rows and reads the
+  shifted X columns through masked loads; the reuse of neighbouring X
+  columns across diagonals is served by the GPU's caches. PERF.md gives
+  its times on the card beside XLA's fusion of the same computation.
 """
 
 from __future__ import annotations
@@ -47,7 +29,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from dune_eigensolver_tpu.sparse.formats import DIAMatrix
 
@@ -73,41 +55,33 @@ class PaddedLayout:
     """Static geometry of the persistent zero-guarded transposed multivector.
 
     Logical column i of an (m, n) multivector lives at buffer column i + G;
-    the guards [0, G) and [G + n, width) hold zeros which every kernel
-    application rewrites, so chained SpMMs never re-pad. G is a multiple of
-    the tile T and satisfies G >= halo + 2T so every (possibly quotient-
-    shifted) tile window an interior output tile reads stays un-clamped.
+    the guards [0, G) and [G + n, width) hold zeros. G covers the largest
+    halo (rounded up to a 128-column boundary), so every shifted read of an
+    interior column stays inside the buffer.
 
     Build the layout from the UNION of all operator offsets that will share
     it (e.g. A' and B of a generalized solve): ``guard`` must cover the
     largest halo.
     """
 
-    def __init__(self, n: int, m: int, offsets, tile: Optional[int] = None):
+    def __init__(self, n: int, m: int, offsets):
         halo = max((abs(o) for o in offsets), default=0)
-        if tile is None:
-            tile = _pick_tile(n, m, offsets)
-        T = _round_up(max(tile, 128), 128)
-        G = _round_up(halo + 256, T) + 2 * T
+        G = _round_up(max(halo, 1), 128)
         self.n, self.m = n, m
-        self.T, self.G = T, G
+        self.G = G
         self.halo = halo
-        self.mpad = _round_up(max(m, 8), 8)
-        self.n_pad = _round_up(n, T)
-        self.nt = self.n_pad // T  # interior tiles
-        self.width = self.n_pad + 2 * G
+        self.width = _round_up(n, 128) + 2 * G
 
     def pad(self, Xt: jax.Array) -> jax.Array:
-        """(m, n) -> guarded (mpad', width); m may differ from layout m
+        """(m, n) -> guarded (m, width); m may differ from the layout's m
         (e.g. LOBPCG's 3m search blocks share the layout)."""
         m, n = Xt.shape
         if n != self.n:
             raise ValueError(f"pad: Xt has n={n}, layout n={self.n}")
-        mpad = _round_up(max(m, 8), 8)
-        return jnp.pad(Xt, ((0, mpad - m), (self.G, self.width - n - self.G)))
+        return jnp.pad(Xt, ((0, 0), (self.G, self.width - n - self.G)))
 
     def unpad(self, Xp: jax.Array, m: Optional[int] = None) -> jax.Array:
-        """guarded (mpad, width) -> (m, n)."""
+        """guarded (m', width) -> (m, n)."""
         m = self.m if m is None else m
         return Xp[:m, self.G : self.G + self.n]
 
@@ -121,7 +95,7 @@ class PaddedLayout:
         """Pre-pad the operator's diagonal data into this geometry (do this
         ONCE at setup; the padded data is what iterates)."""
         halo = max((abs(o) for o in A.offsets), default=0)
-        if self.G < halo + 2 * self.T:
+        if self.G < halo:
             raise ValueError(
                 f"layout guard {self.G} too small for operator halo {halo}; "
                 "build the PaddedLayout from the union of operator offsets"
@@ -129,13 +103,7 @@ class PaddedLayout:
         if A.shape[0] != self.n:
             raise ValueError(f"pad_operator: A n={A.shape[0]}, layout n={self.n}")
         data = jnp.pad(A.data, ((0, 0), (self.G, self.width - self.n - self.G)))
-        return PaddedDIA(
-            data=data,
-            offsets=A.offsets,
-            shape=A.shape,
-            tile=self.T,
-            guard=self.G,
-        )
+        return PaddedDIA(data=data, offsets=A.offsets, shape=A.shape, guard=self.G)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,15 +111,12 @@ class PaddedDIA:
     """A DIA operator pre-padded into a PaddedLayout geometry.
 
     ``data[d]`` has the logical diagonal at columns [guard, guard + n) and
-    zeros elsewhere; the zero guard coefficients are what rewrite the output
-    guard tiles to zero, preserving the layout invariant across chained
-    applications.
+    zeros elsewhere.
     """
 
     data: jax.Array  # (ndiag, width)
     offsets: Tuple[int, ...]  # static
     shape: Tuple[int, int]  # static, logical
-    tile: int  # static T
     guard: int  # static G
 
     @property
@@ -195,270 +160,81 @@ class PaddedDIA:
 jax.tree_util.register_dataclass(
     PaddedDIA,
     data_fields=["data"],
-    meta_fields=["offsets", "shape", "tile", "guard"],
+    meta_fields=["offsets", "shape", "guard"],
 )
 
 
-def _pick_tile(n: int, m: int, offsets, budget: int = 10 * 2**20) -> int:
-    """Largest tile fitting the VMEM budget of the rolling-cache kernel:
-    3-slot rolling cache + 2-slot far-group windows + the auto pipeline's
-    double buffers for data/X/far-inputs/out. Measured on v5e (n=4.2M, 2D):
-    T=32768 runs the kernel at the HBM copy roofline.
-
-    Far-bearing stencils (wide-band 3D) get HALF the budget: the far-member
-    lane-shift concats materialize extra (mpad, T) temporaries the model
-    does not count, and on v5e the composed solver programs (LOBPCG while
-    -> CG while -> Chebyshev fori -> this kernel) silently produced NaNs at
-    a modeled ~9 MB while the same kernel ran clean standalone — empirical
-    safe point is a modeled <= ~5 MB when any far group exists. The mode is
-    pinned by experiments/vmem_nan_repro.py (budget sweep over the same
-    composition ladder; re-run it before raising this budget), and
-    utils/paranoid.py (ev.paranoid=1) adds a runtime isfinite tripwire
-    after every kernel dispatch."""
-    mpad = _round_up(max(m, 8), 8)
-    ndiag = max(len(offsets), 1)
-    for T in (32768, 16384, 8192, 4096, 2048, 1024, 512, 256, 128):
-        center, far = _split_center_far(offsets, T)
-        nfar = len(far)
-        use = (
-            3 * mpad * T  # rolling cache
-            + 2 * nfar * mpad * T  # far-group windows
-            + 2 * (ndiag + (2 + nfar) * mpad) * T  # pipeline double buffers
-        ) * 4
-        if use <= (budget if nfar == 0 else budget // 2):
-            # prefer >= 4 interior tiles so the pipeline overlaps
-            if T > 128 and _round_up(n, T) // T < 4:
-                continue
-            return T
-    return 128
+# Pallas interpret mode for ``padded_spmm``. The kernel compiles only for
+# the GPU; the CPU test suite asks for the interpreter explicitly
+# (tests/conftest.py calls set_interpret(True)). Nothing derives it from
+# the platform.
+_INTERPRET = False
 
 
-def pick_shard_tile(
-    nloc: int, m: int, offsets, budget: int = 10 * 2**20,
-    max_guard_frac: float = 0.25,
-) -> int:
-    """Tile for PER-SHARD guarded layouts (dist/sharded.py).
-
-    Same VMEM model as ``_pick_tile``, plus a guard-overhead bound: the
-    kernel streams the zero-guard tiles too (G >= halo + 2T per side), and a
-    shard's local row count is ndev-times smaller than the global problem,
-    so the single-chip tile choice can waste a large fraction of the local
-    bandwidth on guards. Pick the largest tile whose total guard width stays
-    under ``max_guard_frac`` of the local rows; tiny shards fall back to the
-    minimum tile (tests / dryruns)."""
-    mpad = _round_up(max(m, 8), 8)
-    halo = max((abs(o) for o in offsets), default=0)
-    ndiag = max(len(offsets), 1)
-    for T in (32768, 16384, 8192, 4096, 2048, 1024, 512, 256, 128):
-        center, far = _split_center_far(offsets, T)
-        nfar = len(far)
-        use = (
-            3 * mpad * T
-            + 2 * nfar * mpad * T
-            + 2 * (ndiag + (2 + nfar) * mpad) * T
-        ) * 4
-        if use > (budget if nfar == 0 else budget // 2):
-            continue
-        G = _round_up(halo + 256, T) + 2 * T
-        if 2 * G <= max_guard_frac * nloc or T == 128:
-            return T
-    return 128
+def set_interpret(on: bool) -> bool:
+    """Set interpret mode for ``padded_spmm``; returns the previous setting."""
+    global _INTERPRET
+    prev, _INTERPRET = _INTERPRET, bool(on)
+    return prev
 
 
-def _split_center_far(offsets, T):
-    """Center = offsets servable from the rolling {prev, cur, next} tile
-    cache (|off| <= T); far = the rest, grouped by tile quotient
-    ``q = off // T`` so each group's relative shift ``off - q*T`` lies in
-    [0, T) and is servable from a 2-slot window of tiles {j+q, j+q+1}."""
-    center = tuple(
-        (d, off) for d, off in enumerate(offsets) if -T <= off <= T
-    )
-    groups = {}
-    for d, off in enumerate(offsets):
-        if -T <= off <= T:
-            continue
-        groups.setdefault(off // T, []).append((d, off))
-    far = tuple(
-        (q, tuple(sorted(members, key=lambda p: p[1])))
-        for q, members in sorted(groups.items())
-    )
-    return center, far
-
-
-def _kernel(center, far, T, mpad, data_ref, x_ref, *rest):
-    # Rolling 3-tile VMEM cache: at grid step t the auto-pipelined input
-    # block is X tile t; output tile j = t-1 is computed one step behind from
-    # cached tiles {j-1, j, j+1}, so X streams through HBM exactly once and
-    # Mosaic's pipeliner overlaps everything. Each far group g (quotient q)
-    # has its OWN auto-pipelined input delivering X tile t+q (clamped) at
-    # step t into a 2-slot rolling window holding tiles {j+q, j+q+1}. Guard
-    # tiles have all-zero coefficients, so edges self-correct (uninitialized
-    # cache slots and clamp-repeated edge tiles only ever multiply zeros).
-    nfar = len(far)
-    far_refs = rest[:nfar]
-    out_ref = rest[nfar]
-    xroll = rest[nfar + 1]
-    fwins = rest[nfar + 2 :]
-    t = pl.program_id(0)
-
-    @pl.when(t == 0)
-    def _():
-        # scratch may hold stale garbage (NaN x 0 = NaN would poison the
-        # guard-zero invariant); seed the slots that shift into view
-        xroll[1] = jnp.zeros_like(xroll[1])
-        xroll[2] = jnp.zeros_like(xroll[2])
-
-    # shift the rolling window: xroll[0]=tile t-2, [1]=t-1, [2]=t
-    xroll[0] = xroll[1]
-    xroll[1] = xroll[2]
-    xroll[2] = x_ref[...]
-    for g in range(nfar):
-        fwins[g][0] = fwins[g][1]
-        fwins[g][1] = far_refs[g][...]
-
-    @pl.when(t > 0)
-    def _():
-        left, centr, right = xroll[0], xroll[1], xroll[2]
-        acc = jnp.zeros((mpad, T), jnp.float32)
-        for d, off in center:
-            if off == 0:
-                win = centr
-            elif off < 0:
-                win = jnp.concatenate(
-                    [left[:, T + off :], centr[:, : T + off]], axis=1
-                )
-            else:
-                win = jnp.concatenate([centr[:, off:], right[:, :off]], axis=1)
-            acc = acc + data_ref[d][None, :].astype(jnp.float32) * win.astype(
-                jnp.float32
-            )
-        for g, (q, members) in enumerate(far):
-            # slots hold tiles {j+q, j+q+1} for output tile j = t-1
-            s0, s1 = fwins[g][0], fwins[g][1]
-            for d, off in members:
-                rel = off - q * T  # in [0, T)
-                if rel == 0:
-                    win = s0
-                else:
-                    win = jnp.concatenate([s0[:, rel:], s1[:, :rel]], axis=1)
-                acc = acc + data_ref[d][None, :].astype(jnp.float32) * win.astype(
-                    jnp.float32
-                )
-        out_ref[:] = acc.astype(out_ref.dtype)
-
-
-def padded_spmm(
-    Ap: PaddedDIA,
-    Xp: jax.Array,
-    donate: bool = False,
-    interpret: bool = False,
-) -> jax.Array:
-    """Yp = (A @ X) in the persistent guarded layout: Xp/Yp (mpad, width)
-    with zero guards (see PaddedLayout). Zero marshalling in the hot loop.
-
-    ``donate=True`` aliases the output onto Xp's buffer (in-place update).
-    This matters inside iteration loops: a pallas output cannot be donated
-    into an XLA while-loop carry, so without aliasing XLA inserts a full
-    multivector copy per call (measured: 851us vs 610us per apply at n=4.2M
-    on v5e — the copy is ~40% of the wall time). Donation is SAFE only when
-    every offset >= -T: output tile j is written at grid step j+1, the
-    center input reads X tile j at step j, and far inputs (quotient q >= 1)
-    read tile j at step j - q < j + 1; reads therefore always precede the
-    overwrite. Offsets below -T give far groups q <= -2 whose reads of tile
-    j happen AFTER step j+1 — hence the guard. Callers where X stays live
-    afterwards can still pass donate=True — XLA then materializes the copy
-    itself (same cost as donate=False).
-    """
-    T, G = Ap.tile, Ap.guard
-    mpad, width = Xp.shape
-    if width != Ap.data.shape[1]:
-        raise ValueError(
-            f"padded_spmm: X width {width} != operator width {Ap.data.shape[1]}"
-        )
-    if mpad % 8 != 0:
-        raise ValueError(f"padded_spmm: mpad={mpad} not a multiple of 8")
-    if donate and min(Ap.offsets, default=0) < -T:
-        raise ValueError(
-            "padded_spmm: donate=True unsafe for offsets below -tile "
-            f"(min offset {min(Ap.offsets)}, tile {T}); pass donate=False"
-        )
-    ndiag = len(Ap.offsets)
-    center, far = _split_center_far(Ap.offsets, T)
-    ntot = width // T
-    nfar = len(far)
-
-    def clamp(i):
-        return jnp.minimum(jnp.maximum(i, 0), ntot - 1)
-
-    kernel = functools.partial(_kernel, center, far, T, mpad)
-    n, m_log = Ap.n, mpad
-    in_specs = [
-        pl.BlockSpec((ndiag, T), lambda t: (0, clamp(t - 1))),
-        pl.BlockSpec((mpad, T), lambda t: (0, clamp(t))),
+def _kernel(offsets, m, BT, RB, width, data_ref, x_ref, o_ref):
+    # One program per BT-column tile; all m rows in RB-row chunks, so each
+    # coefficient is loaded once and used m times. Shifted X loads are
+    # masked at the buffer edges (the guard coefficients there are zero).
+    # Nothing is carried between programs and the output does not alias
+    # the input, so programs may run in any order.
+    acc_t = jnp.promote_types(o_ref.dtype, jnp.float32)
+    j = pl.program_id(0)
+    cols = j * BT + jnp.arange(BT)
+    inside = cols < width
+    coefs = [
+        plgpu.load(data_ref.at[d, cols], mask=inside, other=0.0).astype(acc_t)
+        for d in range(len(offsets))
     ]
-    operands = [Ap.data, Xp]
-    for q, _members in far:
-        # far groups stream X again through their own pipelined input,
-        # index-shifted by the group quotient (delivers tile t+q at step t)
-        in_specs.append(
-            pl.BlockSpec((mpad, T), lambda t, _q=q: (0, clamp(t + _q)))
+    for r0 in range(0, m, RB):
+        rows = r0 + jnp.arange(RB)
+        rmask = rows[:, None] < m
+        acc = jnp.zeros((RB, BT), acc_t)
+        for d, off in enumerate(offsets):
+            c = cols + off
+            ok = ((c >= 0) & (c < width))[None, :] & rmask
+            xs = plgpu.load(
+                x_ref.at[rows[:, None], c[None, :]], mask=ok, other=0.0
+            )
+            acc = acc + coefs[d][None, :] * xs.astype(acc_t)
+        plgpu.store(
+            o_ref.at[rows[:, None], cols[None, :]],
+            acc.astype(o_ref.dtype),
+            mask=inside[None, :] & rmask,
         )
-        operands.append(Xp)
-    scratch = [pltpu.VMEM((3, mpad, T), Xp.dtype)]
-    scratch += [pltpu.VMEM((2, mpad, T), Xp.dtype) for _ in range(nfar)]
+
+
+def padded_spmm(Ap: PaddedDIA, Xp: jax.Array) -> jax.Array:
+    """Yp = (A @ X) in the persistent guarded layout: Xp/Yp (m, width) with
+    zero guards (see PaddedLayout). A Pallas kernel on the Triton route;
+    products accumulate in at least float32 whatever the storage dtype.
+
+    Each program covers 2 KiB of every row (512 float32 columns, 1024
+    bfloat16: the faster tile of each on the H100, PERF.md), 8 rows at a
+    time.
+    """
+    if Xp.shape[1] != Ap.data.shape[1]:
+        raise ValueError(
+            f"padded_spmm: X width {Xp.shape[1]} != operator width "
+            f"{Ap.data.shape[1]}"
+        )
+    m, width = Xp.shape
+    block_cols = 2048 // jnp.dtype(Xp.dtype).itemsize
+    kernel = functools.partial(
+        _kernel, tuple(Ap.offsets), m, block_cols, 8, width
+    )
     return pl.pallas_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct((mpad, width), Xp.dtype),
-        grid=(ntot + 1,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((mpad, T), lambda t: (0, clamp(t - 1))),
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * ndiag * n * m_log,
-            bytes_accessed=(ndiag * n + (2 + nfar) * n * m_log)
-            * Xp.dtype.itemsize,
-            transcendentals=0,
-        ),
-        input_output_aliases={1: 0} if donate else {},
-        interpret=interpret,
-    )(*operands)
-
-
-# ---------------------------------------------------------------------------
-# Convenience wrappers (pad per call — for one-shot use and benchmarks; the
-# iteration hot path should hold PaddedDIA + guarded X and call padded_spmm)
-# ---------------------------------------------------------------------------
-
-
-def dia_spmm_t_pallas(
-    A: DIAMatrix, Xt: jax.Array, tile: Optional[int] = None, interpret: bool = False
-) -> jax.Array:
-    """Pallas DIA SpMM in the transposed (m, n) layout. Yt (m, n) = A @ X.
-
-    Pads X (and the operator data) on every call — correct anywhere, but in
-    an iteration loop use ``PaddedLayout.pad_operator`` + ``padded_spmm``.
-    """
-    m, n = Xt.shape
-    if A.shape[1] != n:
-        raise ValueError(f"dia_spmm_t_pallas: {A.shape} @ X^T with Xt {Xt.shape}")
-    L = PaddedLayout(n, m, A.offsets, tile=tile)
-    Ap = L.pad_operator(A)
-    return L.unpad(padded_spmm(Ap, L.pad(Xt), interpret=interpret), m)
-
-
-# wide-band operators are handled by the same clustered kernel
-dia_spmm_t_pallas_grouped = dia_spmm_t_pallas
-
-
-def dia_spmm_t_pallas_padded(
-    A: DIAMatrix, Xp: jax.Array, layout: PaddedLayout, interpret: bool = False
-) -> jax.Array:
-    """Back-compat wrapper: pads the operator per call, then ``padded_spmm``.
-    Prefer ``layout.pad_operator(A)`` once + ``padded_spmm`` in loops."""
-    return padded_spmm(layout.pad_operator(A), Xp, interpret=interpret)
-
-
-def dia_spmm_best(A: DIAMatrix, X: jax.Array) -> jax.Array:
-    """(n, m)-layout convenience wrapper over the Pallas kernel (transposes
-    in/out; for the zero-copy hot path use padded_spmm directly)."""
-    return dia_spmm_t_pallas(A, X.T).T
+        out_shape=jax.ShapeDtypeStruct(Xp.shape, Xp.dtype),
+        grid=(pl.cdiv(width, block_cols),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        interpret=_INTERPRET,
+        name="dia_spmm",
+    )(Ap.data, Xp)

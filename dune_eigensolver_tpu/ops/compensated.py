@@ -3,8 +3,8 @@ refinement path.
 
 The reference runs end-to-end f64 (eigensolver.hh works on doubles and the
 1e-14 ARPACK oracle protocol at src/dune-eigensolver.cc:559-614 assumes it).
-TPU vector hardware is f32; instead of paying XLA's software-f64 emulation
-inside the iteration, the framework iterates in f32 and runs ONE compensated
+Instead of iterating in f64, the framework can iterate in f32 and run ONE
+compensated
 Rayleigh-Ritz pass at the end (solvers/refine.py): subspace error eps enters
 Ritz values only at O(eps^2), so the accuracy bottleneck is the GRAM
 computation — restored here to "as if f64" via classical error-free
@@ -14,13 +14,14 @@ transforms in pure f32:
 * ``twoprod`` — Dekker/Veltkamp split product: a * b = p + e exactly
   (no FMA dependence: the 2^s+1 splitting keeps every sub-product exact).
 * ``sum2``    — pairwise-tree compensated reduction (Ogita-Rump-Oishi dot2
-  reshaped for the VPU: every tree level is one elementwise pass over a
+  reshaped for vector hardware: every tree level is one elementwise pass
+  over a
   halved array, log2(n) levels, no sequential scan).
 * ``dot2_rows`` / ``spmm2_dia_t`` — compensated row dots and DIA SpMM
   returning (hi, lo) pairs with hi + lo accurate to O(u^2 * n).
 
-Everything is jittable, shape-static, and f32-native — it runs at VPU speed
-on TPU with no x64 flag.
+Everything is jittable, shape-static, and f32-native — it needs no x64
+flag.
 """
 
 from __future__ import annotations

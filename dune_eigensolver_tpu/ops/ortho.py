@@ -1,17 +1,17 @@
 """Blocked multivector orthonormalization and dot products.
 
-TPU-native reformulation of the reference kernels
+Reformulation of the reference kernels
 (dune/eigensolver/kernels_cpp.hh):
 
 * ``dot_products_diagonal`` — per-column dots, the Rayleigh-quotient kernel
   (reference :24-55).
-* ``dot_products_all`` — full m x m Gram (reference :58-96); one MXU matmul.
+* ``dot_products_all`` — full m x m Gram (reference :58-96); one matmul.
 * ``orthonormalize_blocked_t`` — the reference orthonormalizes each b-column
   block by LU-factorizing its Gram matrix and right-multiplying by
   ``U^-1 . D^-1/2`` (reference :231-306), which is exactly Cholesky-QR
   (``Q = X @ chol(X^T X)^-T``), then projects all later blocks against the
   finished block with rank-b updates (reference :308-349). Here every piece
-  is a dense matmul/triangular-solve on the MXU, and the Gram matrices can be
+  is a dense matmul/triangular-solve, and the Gram matrices can be
   all-reduced across a device mesh via ``gram_reduce`` (the collective
   orthogonalization the single-process reference lacks).
 * ``b_orthonormalize_blocked_t`` — B-inner-product variant that keeps
@@ -20,7 +20,7 @@ TPU-native reformulation of the reference kernels
   (reference :369,466,568,590).
 
 Layout: the ``_t`` functions operate on the TRANSPOSED multivector (m, n*)
-— m column-vectors as lane-major rows, the layout the Pallas SpMM streams —
+— m column-vectors as contiguous rows, the layout the DIA SpMM streams —
 and run the block sweep as a ``lax.fori_loop`` over a preallocated prefix
 buffer, so the trace is O(m/b) matmuls regardless of m (the round-1
 per-block concat loop traced O((m/b)^2) slices, which exploded compile time
@@ -33,7 +33,7 @@ by m x m matrices plus row scalings).
 The (n, m) column-layout entry points are kept as thin transposing wrappers
 for oracle-facing code.
 
-For f32/bf16 on TPU (f64 is emulated and slow), pass ``iterations=2`` to run
+For f32/bf16, pass ``iterations=2`` to run
 the sweep twice (CholeskyQR2), which restores orthogonality to machine
 precision as long as the first pass succeeds.
 """
@@ -46,7 +46,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# Gram matrices feed Cholesky: always use full-precision MXU passes.
+# Gram matrices feed Cholesky: always full float32 precision (no TF32).
 _PREC = lax.Precision.HIGHEST
 
 
@@ -68,7 +68,7 @@ def dot_products_all(Q1: jax.Array, Q2: jax.Array) -> jax.Array:
 def _small_chol(G: jax.Array) -> jax.Array:
     """Lower Cholesky of a block Gram matrix; fully unrolled for the static
     small block sizes (8x8 jnp.linalg.cholesky lowers to a serialized XLA
-    loop on TPU — see ops/smalllinalg.py)."""
+    loop — see ops/smalllinalg.py)."""
     from dune_eigensolver_tpu.ops.smalllinalg import _UNROLL_MAX, cholesky_unrolled
 
     if G.shape[0] <= _UNROLL_MAX:
@@ -77,7 +77,7 @@ def _small_chol(G: jax.Array) -> jax.Array:
 
 
 def _left_lower_solve(R: jax.Array, Xk: jax.Array) -> jax.Array:
-    """R^-1 @ Xk for lower-triangular R, rows of Xk lane-major (unrolled)."""
+    """R^-1 @ Xk for lower-triangular R, rows of Xk contiguous (unrolled)."""
     from dune_eigensolver_tpu.ops.smalllinalg import _UNROLL_MAX, solve_lower_left
 
     if R.shape[0] <= _UNROLL_MAX:

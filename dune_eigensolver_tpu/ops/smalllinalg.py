@@ -1,11 +1,11 @@
 """Unrolled small-matrix factorizations for the blocked orthonormalization.
 
 ``jnp.linalg.cholesky`` / ``triangular_solve`` on an 8x8 operand lower to
-XLA while-loops with dynamic slicing — costly on TPU where each tiny
-dynamic step serializes. The ortho block size is a static 8 (the reference's
+XLA while-loops with dynamic slicing, where each tiny dynamic step
+serializes. The ortho block size is a static 8 (the reference's
 SIMD width, multivector.hh:26), so the b x b Gram factorization can be
 FULLY UNROLLED into static scalar/vector ops that XLA fuses into a handful
-of VPU instructions — the TPU analogue of the reference's hand-unrolled
+of vector instructions — the analogue of the reference's hand-unrolled
 register-tile LU of the Gram block (kernels_cpp.hh:231-306).
 
 Used automatically by ops/ortho.py for block sizes <= _UNROLL_MAX.
@@ -61,7 +61,7 @@ def solve_lower_left(L: jax.Array, B: jax.Array) -> jax.Array:
     """L^-1 @ B for small lower-triangular L, unrolled row by row.
 
     Forward substitution on ROWS of the transposed multivector layout:
-    y_i = (b_i - sum_{k<i} L[i,k] y_k) / L[i,i] with b_i = B[i] a lane-major
+    y_i = (b_i - sum_{k<i} L[i,k] y_k) / L[i,i] with b_i = B[i] a contiguous
     (n,)-row. This is the transposed-layout Cholesky-QR normalization
     (columns of X^T are rows here), so no (n, b) transposes are needed.
     B: (b, n); returns (b, n).

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing ("runs are short; restart = rerun with
 same seed", SURVEY.md §5). At production scale a shift-invert run over a
-10M-dof operator is minutes-to-hours, so the TPU framework adds segmented
+10M-dof operator is minutes-to-hours, so this framework adds segmented
 execution: the solver runs ``checkpoint_every`` iterations per segment (one
 XLA computation each), persists the iterate block Q and Rayleigh quotients
 to ``<path>`` after every segment, and resumes from the newest checkpoint on

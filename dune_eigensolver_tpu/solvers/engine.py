@@ -1,9 +1,8 @@
 """Internal solver layout engine: guarded transposed multivectors.
 
-Solver cores iterate on the TRANSPOSED multivector (m, n*) — the layout the
-Pallas rolling-cache SpMM streams (kernels/dia_spmm.py) and the analogue of
-the reference's contiguous 8-RHS blocks (multivector.hh:130-139). On TPU
-with DIA operands the internal width n* is the guarded ``PaddedLayout``
+Solver cores iterate on the TRANSPOSED multivector (m, n*) — the analogue of
+the reference's contiguous 8-RHS blocks (multivector.hh:130-139). With DIA
+operands in the guarded mode the internal width n* is the ``PaddedLayout``
 width, so the whole while-loop runs with ZERO marshalling: the SpMM, the
 orthonormalization (left m x m transforms preserve the zero guards), the
 Rayleigh dots (guards contribute zero) and the Krylov inverse engines all
@@ -11,9 +10,10 @@ operate on the same persistent buffers.
 
 ``make_engine`` decides the internal representation once per solve:
 
-* DIA operands (+ TPU, or ``force_padded`` for CPU-mesh tests) -> one
-  ``PaddedLayout`` built from the UNION of A'/B offsets, operators pre-padded
-  once (``PaddedDIA``), multivectors guarded;
+* DIA operands where ``backend.dia_spmm_mode()`` says 'padded' (or
+  ``force_padded`` in tests) -> one ``PaddedLayout`` built from the UNION
+  of A'/B offsets, operators pre-padded once (``PaddedDIA``), multivectors
+  guarded;
 * anything else -> plain transposed arrays, operators as-is (``spmm_t``'s
   XLA formulations).
 
@@ -38,13 +38,6 @@ from dune_eigensolver_tpu.kernels.dia_spmm import PaddedDIA, PaddedLayout
 from dune_eigensolver_tpu.sparse.formats import DIAMatrix
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
 _SETUP_MEMO: "dict" = {}
 _SETUP_MEMO_MAX = 32
 
@@ -57,9 +50,8 @@ def memoized_setup(objs, params, build):
     Repeated solves on the same operand objects — the GenEO pattern: the
     adaptive driver re-solves per growth round, and production coarse-space
     assembly solves the same pencil many times — otherwise pay the full
-    host setup (shift fold, RCM, windowed planning, factorization, device
-    upload) on every call: measured 1.5-1.6 s/call on the n=18k elasticity
-    pencil vs a ~0.05 s solver loop (TPU_DIST_WIN_r05 analysis). Keys use
+    host setup (shift fold, RCM, shard planning, factorization, device
+    upload) on every call. Keys use
     ``id(obj)`` guarded by ``weakref`` eviction so a dead operand can never
     alias a new one; objects that do not support weakrefs are NOT cached
     (stale-id aliasing would be unsound). Containers are immutable (frozen
@@ -153,48 +145,16 @@ def make_engine(
 ) -> Tuple[Any, Any, Optional[PaddedLayout], EngineSpec]:
     """Pick the internal representation: (A_int, B_int, layout, spec).
 
-    ``force_padded``: True forces the guarded Pallas layout (CPU tests run
-    it in interpret mode), False forces plain; None -> padded iff both
-    operands are DIA and a TPU is attached.
+    ``force_padded``: True forces the guarded layout, False forces plain;
+    None -> guarded iff both operands are DIA and
+    ``backend.dia_spmm_mode()`` is 'padded'.
     """
-    from dune_eigensolver_tpu.sparse.formats import BSRMatrix, ELLMatrix
+    from dune_eigensolver_tpu import backend
 
     is_dia = isinstance(A_sh, DIAMatrix) and (B is None or isinstance(B, DIAMatrix))
-    use_padded = is_dia if force_padded is None else (force_padded and is_dia)
     if force_padded is None:
-        use_padded = use_padded and _on_tpu()
-    if not use_padded:
-        # general sparsity: windowed-gather Pallas engine for ELL/BSR
-        # operand sets (kernels/gather_spmm.py), same guard invariants
-        # (G = 0, zero pad columns preserved by zero-coefficient pad rows)
-        winable = (DIAMatrix, ELLMatrix, BSRMatrix)
-        is_win = (
-            isinstance(A_sh, (ELLMatrix, BSRMatrix))
-            and isinstance(A_sh, winable)
-            and (B is None or isinstance(B, winable))
-        )
-        use_win = is_win if force_padded is None else (force_padded and is_win)
-        if force_padded is None:
-            use_win = use_win and _on_tpu()
-        if use_win:
-            from dune_eigensolver_tpu.kernels.gather_spmm import (
-                make_windowed_operands,
-            )
-
-            try:
-                A_int, B_int, L = make_windowed_operands(A_sh, B, m=m)
-                return A_int, B_int, L, EngineSpec(0, L.n, L.width)
-            except ValueError as e:
-                # window overflow: XLA fallback below — LOUD (the windowed
-                # kernel measured ~43x faster than the XLA gather
-                # formulation on v5e, TPU_MATVEC_r03)
-                from dune_eigensolver_tpu.utils.vlog import warn_fallback
-
-                warn_fallback(
-                    f"windowed-gather SpMM setup failed at m={m} "
-                    f"(n={A_sh.shape[0]}): {e} -> using the XLA gather "
-                    "formulation (~40x slower on TPU)"
-                )
+        force_padded = backend.dia_spmm_mode() == "padded"
+    if not (is_dia and force_padded):
         return A_sh, B, None, EngineSpec(None, None, None)
     union = set(A_sh.offsets)
     if B is not None:

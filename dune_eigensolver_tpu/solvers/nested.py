@@ -1,6 +1,6 @@
 """Nested-iteration LOBPCG: seed the fine-grid solve from coarser grids.
 
-Full-multigrid-style eigensolving, a TPU-first capability beyond the
+Full-multigrid-style eigensolving, a capability beyond the
 reference's solver set (the reference always starts from seeded random
 vectors, eigensolver.hh:50-55): the smallest eigenvectors of an elliptic
 operator are smooth, so the same solve on a half-resolution grid — 8x
@@ -10,13 +10,12 @@ carries to the fine grid with O(h^2) accuracy. The fine-grid LOBPCG then
 only pays the few iterations that correct the interpolation error instead
 of building the subspace from noise.
 
-Measured on the north-star problem (smallest-20 of the 10.1M-dof 3D
-Dirichlet Laplacian, one v5e chip, experiments/ns_nested.py): the
-single-level recipe converges in 12 fine iterations / 3.00 s; the
-three-level nest (54^3 -> 108^3 -> 216^3, coarse_tol=2e-4) runs
-[11, 4, 3] iterations for 1.08 s steady — 2.8x — and lands 10x closer
-to the analytic spectrum (err20 9.2e-7 vs 9.6e-6), because the seeded
-iterations start inside the target subspace.
+On the north-star problem (smallest-20 of the 10.1M-dof 3D Dirichlet
+Laplacian) the three-level nest (54^3 -> 108^3 -> 216^3, coarse_tol=2e-4)
+needs only a few fine iterations instead of the single-level recipe's
+dozen, and lands closer to the analytic spectrum, because the seeded
+iterations start inside the target subspace. Times on the GPU are in
+PERF.md.
 
 The coarse hierarchy is derived from the operand itself: grid dims are
 detected from the DIA offset pattern and the interior stencil coefficients
@@ -148,9 +147,8 @@ def lobpcg_nested(
     ``min(dims) // 2 >= min_coarse``, solves coarsest-to-finest, and seeds
     each level with the prolonged eigenvector block of the one below.
     Coarse levels solve the full padded block width at ``coarse_tol``
-    (default ``max(tol/10, 1e-5)`` — the experiments/ns_nested.py sweep:
-    over-converging the coarse levels is nearly free and cuts fine-grid
-    iterations, 2e-3/2e-4 -> [11, 4, 3] fine iterations at n=10.1M).
+    (default ``max(tol/10, 1e-5)``: over-converging the coarse levels is
+    nearly free and cuts fine-grid iterations).
 
     Requires ``b_identity=True`` (B is only used as the identity
     embedding); generalized pencils should seed ``lobpcg_generalized``

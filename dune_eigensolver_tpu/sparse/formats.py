@@ -2,9 +2,9 @@
 
 The reference stores operands as DUNE ISTL ``BCRSMatrix<FieldMatrix<double,br,bc>>``
 (block compressed row storage) and streams them row-by-row inside hand-written
-SIMD kernels (reference: dune/eigensolver/kernels_cpp.hh:596-657). On TPU the
-analogous containers must present *static shapes* and *vectorizable access
-patterns* to XLA/Pallas, so we use:
+SIMD kernels (reference: dune/eigensolver/kernels_cpp.hh:596-657). Under
+XLA the analogous containers must present *static shapes* and *vectorizable
+access patterns*, so we use:
 
 * ``DIAMatrix``  — diagonal storage. The right format for the stencil-type
   test operators of the reference driver (2D 5-point / 3D 7-point Laplacians,
@@ -14,7 +14,7 @@ patterns* to XLA/Pallas, so we use:
 * ``ELLMatrix``  — padded row storage (ELLPACK). General fallback for
   unstructured sparsity; SpMM is a row-gather + FMA.
 * ``BSRMatrix``  — block-ELL: padded block-row storage with dense
-  ``(br, bc)`` blocks, the TPU equivalent of ISTL's BCRS with
+  ``(br, bc)`` blocks, the equivalent of ISTL's BCRS with
   ``FieldMatrix<double,br,bc>`` blocks (elasticity-type operators).
 
 All containers register as pytrees so they pass through ``jit``/``shard_map``
@@ -179,7 +179,7 @@ _register(ELLMatrix, ["data", "cols"], ["shape", "nnz"])
 class BSRMatrix:
     """Block-ELL storage: padded block rows of dense (br, bc) blocks.
 
-    TPU-native equivalent of ISTL BCRS with FieldMatrix blocks. ``bcols`` is
+    Equivalent of ISTL BCRS with FieldMatrix blocks. ``bcols`` is
     (nbr, k) int32 of block-column indices (padding: own block index, zero
     block), ``bdata`` is (nbr, k, br, bc).
     """

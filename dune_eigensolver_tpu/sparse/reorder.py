@@ -2,12 +2,12 @@
 
 Eigenvalues of the pencil (A, B) are invariant under a symmetric
 permutation P A P^T / P B P^T, so an eigensolve on an unstructured operator
-may be run entirely in RCM order — which bounds every row tile's column
-support and makes the windowed-gather TPU kernel applicable
-(kernels/gather_spmm.py) — and only the eigenVECTORS need permuting back.
+may be run entirely in RCM order — which bounds the bandwidth, so the
+banded direct solve (factorize/reordered.py) and the row-sharded drivers
+(dist/windowed.py) apply — and only the eigenVECTORS need permuting back.
 The reference leaves ordering to UMFPACK's internals (umfpacktools.hh:
 100-111); here ordering is an explicit, user-visible setup step because it
-decides which TPU engine the operands can run on.
+decides which engine the operands can run on.
 """
 
 from __future__ import annotations

@@ -1,22 +1,20 @@
 """Tall-skinny SpMM: ``Y = A @ X`` for the sparse containers.
 
-TPU-native replacement for the reference's multi-RHS sparse kernels
+Counterpart of the reference's multi-RHS sparse kernels
 (``matmul_sparse_tallskinny_{naive,blocked,avx2_b8,neon_b8}``, reference:
 dune/eigensolver/kernels_cpp.hh:596-657, kernels_avx2.hh:1021-1059,
 kernels_neon.hh:1314-1361). The reference streams CSR rows once per 8-column
-block and broadcasts each scalar ``a_ij`` across a SIMD register; here the
-column block is the TPU lane dimension and the row dimension vectorizes across
-sublanes:
+block and broadcasts each scalar ``a_ij`` across a SIMD register; here XLA
+vectorizes over both the rows and the m columns:
 
 * DIA: each diagonal is a constant-offset slice of X fused-multiply-added
   into the output — no gathers at all, pure streaming (the speed-of-light
   formulation for the stencil operators in the reference driver).
 * ELL: row gather of X + FMA over the padded row width.
-* BSR: block-row gather + small dense block contraction (MXU-friendly for
-  br, bc >= 2).
+* BSR: block-row gather + small dense block contraction.
 
-These are the XLA reference implementations; ``kernels/`` provides Pallas
-versions of the hot ones with identical semantics.
+Every contraction asks for ``Precision.HIGHEST``, so float32 products never
+run in TF32.
 """
 
 from __future__ import annotations
@@ -76,10 +74,9 @@ def spmm(A, X: jax.Array) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Transposed (m, n) layout — the solver-internal hot path. m rides the
-# sublane dimension and n the lanes, the TPU analogue of the reference's
-# contiguous 8-RHS blocks (multivector.hh:130-139). Guarded (PaddedDIA)
-# operands route to the Pallas rolling-cache kernel.
+# Transposed (m, n) layout — the solver-internal hot path, the analogue of
+# the reference's contiguous 8-RHS blocks (multivector.hh:130-139). Guarded
+# (PaddedDIA) operands keep the persistent zero-guarded layout.
 # ---------------------------------------------------------------------------
 
 
@@ -105,46 +102,19 @@ def bsr_spmm_t(A: BSRMatrix, Xt: jax.Array) -> jax.Array:
     return Yb.reshape(m, A.shape[0])
 
 
-def _on_tpu() -> bool:
-    import jax as _jax
-
-    try:
-        return _jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
-def spmm_t(A, Xt: jax.Array, donate: bool = False) -> jax.Array:
+def spmm_t(A, Xt: jax.Array) -> jax.Array:
     """Transposed-layout SpMM dispatch: Yt (m, n*) = (A @ X). PaddedDIA
-    operands run the Pallas rolling-cache kernel (interpret mode off-TPU so
-    the padded path stays testable on the CPU mesh); plain containers run
-    the XLA formulations."""
+    operands run on the guarded layout (kernels/dia_spmm.py); plain
+    containers run the XLA formulations."""
     from dune_eigensolver_tpu.kernels.dia_spmm import (
         PaddedDIA,
         dia_spmm_t_xla,
         padded_spmm,
     )
-
-    from dune_eigensolver_tpu.kernels.gather_spmm import (
-        WindowedBSR,
-        WindowedELL,
-        windowed_spmm_t,
-    )
-
     from dune_eigensolver_tpu.utils.paranoid import nan_check
 
     if isinstance(A, PaddedDIA):
-        if donate and min(A.offsets, default=0) < -A.tile:
-            donate = False  # in-place unsafe for far-left clusters (3D)
-        return nan_check(
-            padded_spmm(A, Xt, donate=donate, interpret=not _on_tpu()),
-            "padded_spmm",
-        )
-    if isinstance(A, (WindowedELL, WindowedBSR)):
-        return nan_check(
-            windowed_spmm_t(A, Xt, interpret=not _on_tpu()),
-            "windowed_spmm_t",
-        )
+        return nan_check(padded_spmm(A, Xt), "padded_spmm")
     if isinstance(A, DIAMatrix):
         return dia_spmm_t_xla(A, Xt)
     if isinstance(A, ELLMatrix):

@@ -54,7 +54,7 @@ class VLog:
 @contextlib.contextmanager
 def profiler_trace(logdir: Optional[str]):
     """jax.profiler trace context; no-op when logdir is falsy. View with
-    tensorboard/xprof. The TPU-native replacement for the reference's
+    tensorboard/xprof. The replacement for the reference's
     wall-clock-only instrumentation (SURVEY.md §5)."""
     if not logdir:
         yield

@@ -1,6 +1,6 @@
 """General-sparsity distributed solve example: an unstructured operator
 (any scipy CSR — the reference's native BCRS class, kernels_cpp.hh:626-657)
-row-sharded over the device mesh through the windowed vreg-gather kernel,
+row-sharded over the device mesh through the per-shard ELL SpMM,
 with prebuilt-plan reuse for repeated solves.
 
 Run (any machine; uses however many devices JAX sees — set

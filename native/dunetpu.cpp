@@ -1,11 +1,11 @@
 // libdunetpu — native host-side setup kernels for dune_eigensolver_tpu.
 //
 // The reference implements its entire runtime in C++ (header templates,
-// dune/eigensolver/*.hh); in the TPU framework the device compute path is
+// dune/eigensolver/*.hh); in this framework the device compute path is
 // JAX/XLA/Pallas, and the O(nnz) *host-side* setup loops live here:
 //
 //  * dependency-level computation for the level-scheduled multi-RHS
-//    triangular solve (the TPU replacement for the row-sequential loop of
+//    triangular solve (the device replacement for the row-sequential loop of
 //    matmul_inverse_tallskinny_blocked, kernels_cpp.hh:660-755);
 //  * chunk-schedule packing: grouping rows into fixed-size, level-respecting
 //    chunks and packing their CSR entries into dense (nchunk, C, kmax)
@@ -155,7 +155,7 @@ void csr_to_ell_f64(int64_t n, int64_t kmax, int64_t pad_col,
 //   work[bw + r, i] = A[i + r, i], r in [-bw, bw]   (row-major (2bw+1, n))
 // On return the strictly-lower part holds L (unit diag implied) and the
 // upper part holds U. Returns the index of the first zero pivot, or -1.
-// This is the host-setup factorization behind the TPU block-banded
+// This is the host-setup factorization behind the device block-banded
 // partitioned-inverse trisolve (factorize/banded.py); the reference's
 // analogous native setup is the UMFPACK call in umfpacktools.hh:100-111.
 int64_t lu_banded_f64(int64_t n, int64_t bw, double* work) {

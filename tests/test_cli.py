@@ -191,3 +191,20 @@ def test_eigenvalues_test_lobpcg_nested():
     r = eigenvalues_test(pt)
     anal = eigenvalues_laplace_dirichlet_3d(16)[:4]
     np.testing.assert_allclose(np.sort(r["eigenvalues"])[:4], anal, atol=1e-3)
+
+
+def test_run_returns_each_tests_result():
+    from dune_eigensolver_tpu.cli import run
+
+    out = run(["ev.N=24", "ev.verbose=0", "ev.maxiter=600",
+               "ev.compile_cache=0", "--test", "smallest"])
+    assert set(out) == {"smallest"}
+    assert out["smallest"]["err_vs_truth"] < 5e-3
+    assert out["smallest"]["dtype"] == "float32"
+
+
+def test_main_rejects_an_unknown_test(capsys):
+    from dune_eigensolver_tpu.cli import main
+
+    assert main(["ev.compile_cache=0", "--test", "nope"]) == 2
+    assert "unknown test 'nope'" in capsys.readouterr().out

@@ -1,7 +1,7 @@
-"""Distributed GENERAL-sparsity execution (dist/windowed.py): the windowed
-vreg-gather kernel under shard_map — the reference's native CSR/BCRS operand
-class (kernels_cpp.hh:626-657) at multi-chip scale (a capability the
-reference lacks entirely: MPI disabled, src/dune-eigensolver.cc:742-748)."""
+"""Distributed GENERAL-sparsity execution (dist/windowed.py): per-shard ELL
+SpMM under shard_map — the reference's native CSR/BCRS operand class
+(kernels_cpp.hh:626-657) at multi-device scale (a capability the reference
+lacks entirely: MPI disabled, src/dune-eigensolver.cc:742-748)."""
 
 import numpy as np
 import pytest
@@ -62,7 +62,7 @@ def test_windowed_shard_spmm_matches_global(ndev, overlap):
     n = 4096
     bw = 450 if ndev == 8 else 200
     S = _random_sym_csr(n, 7, seed=2, bw=bw)
-    plan = windowed_shard_plan(S, ndev, tile=512)
+    plan = windowed_shard_plan(S, ndev)
     mesh = make_mesh(ndev)
     axis = ROW_AXIS
     rng = np.random.default_rng(0)
@@ -73,10 +73,10 @@ def test_windowed_shard_spmm_matches_global(ndev, overlap):
     )
 
     def local(x, *arrs):
-        op = _shard_container(plan, arrs[:6])
+        op = _shard_container(plan, arrs)
         bnd = _shard_bnd(plan, arrs) if overlap else None
         return windowed_spmm_halo_t(
-            plan, op, x, axis=axis, interpret=True, bnd=bnd
+            plan, op, x, axis=axis, bnd=bnd
         )
 
     fn = jax.jit(
@@ -97,11 +97,11 @@ def test_windowed_shard_diag():
     n = 2048
     S = _random_sym_csr(n, 6, seed=3)
     ndev = 4
-    plan = windowed_shard_plan(S, ndev, tile=512)
+    plan = windowed_shard_plan(S, ndev)
     d_ref = S.diagonal()
     for i in range(ndev):
         arrs = tuple(
-            np.asarray(a)[i : i + 1] for a in _plan_arrays(plan)[:6]
+            np.asarray(a)[i : i + 1] for a in _plan_arrays(plan)
         )
         op = _shard_container(plan, tuple(jnp.asarray(a) for a in arrs))
         d = np.asarray(_shard_diag(plan, op))
@@ -118,7 +118,7 @@ def test_sharded_largest_general_matches_single_chip():
     S = _random_sym_csr(n, 6, seed=4)
     A = ell_from_scipy(S, dtype=np.float32)
     res_s = sharded_standard_largest_general(
-        S, nev=4, tol=1e-10, maxiter=800, mesh=make_mesh(4), tile=512
+        S, nev=4, tol=1e-10, maxiter=800, mesh=make_mesh(4)
     )
     res_1 = standard_largest(
         A, nev=4, tol=1e-10, maxiter=800, force_padded=False
@@ -136,8 +136,7 @@ def test_sharded_lobpcg_general_vs_oracle():
     S = _random_sym_csr(n, 6, seed=5)
     ref, _ = smallest_standard(S, nev=4, sigma=-1e-3, tol=1e-10)
     res = sharded_lobpcg_general(
-        S, nev=4, tol=1e-5, maxiter=300, shift=1e-3, mesh=make_mesh(4),
-        tile=512, cg_rtol=1e-2, cg_maxiter=25,
+        S, nev=4, tol=1e-5, maxiter=300, shift=1e-3, mesh=make_mesh(4), cg_rtol=1e-2, cg_maxiter=25,
     )
     ev = np.sort(np.asarray(res.eigenvalues))[:4]
     assert np.abs(ev - ref).max() / np.abs(ref).max() < 5e-3, (ev, ref)
@@ -154,8 +153,7 @@ def test_sharded_lobpcg_general_with_mass_matrix():
     Sa, Sb = A.to_scipy(), B.to_scipy()
     ref, _ = smallest_generalized(A, B, nev=4, sigma=-1e-3, tol=1e-10)
     res = sharded_lobpcg_general(
-        Sa, Sb, nev=4, tol=1e-6, maxiter=400, shift=1e-3, mesh=make_mesh(4),
-        tile=128, cg_rtol=1e-3, cg_maxiter=100,
+        Sa, Sb, nev=4, tol=1e-6, maxiter=400, shift=1e-3, mesh=make_mesh(4), cg_rtol=1e-3, cg_maxiter=100,
     )
     ev = np.sort(np.asarray(res.eigenvalues))[:4]
     scale = max(abs(float(ref.max())), 1e-12)
@@ -194,8 +192,7 @@ def test_sharded_generalized_inverse_general_vs_oracle():
     Sa, Sb = A.to_scipy(), B.to_scipy()
     ref, _ = smallest_generalized(A, B, nev=4, sigma=-1e-3, tol=1e-10)
     res = sharded_generalized_inverse_general(
-        Sa, Sb, nev=4, tol=1e-5, maxiter=60, shift=1e-3, mesh=make_mesh(4),
-        tile=128, cg_rtol=1e-8, cg_maxiter=400,
+        Sa, Sb, nev=4, tol=1e-5, maxiter=60, shift=1e-3, mesh=make_mesh(4), cg_rtol=1e-8, cg_maxiter=400,
     )
     ev = np.sort(np.asarray(res.eigenvalues))[:4]
     scale = max(abs(float(ref.max())), 1e-12)
@@ -220,7 +217,7 @@ def test_sharded_largest_general_prime_n_autopad():
     S = _random_sym_csr(n, 6, seed=11, bw=120)
     A = ell_from_scipy(S, dtype=np.float32)
     res_s = sharded_standard_largest_general(
-        S, nev=4, tol=1e-10, maxiter=800, mesh=make_mesh(8), tile=256
+        S, nev=4, tol=1e-10, maxiter=800, mesh=make_mesh(8)
     )
     res_1 = standard_largest(
         A, nev=4, tol=1e-10, maxiter=800, force_padded=False
@@ -238,7 +235,7 @@ def test_windowed_halo_zero_guard():
     d = np.arange(1, n + 1, dtype=np.float32)
     S = sp.diags(d).tocsr()
     ndev = 4
-    plan = windowed_shard_plan(S, ndev, tile=128)
+    plan = windowed_shard_plan(S, ndev)
     assert plan.halo == 0
     mesh = make_mesh(ndev)
     axis = ROW_AXIS
@@ -246,8 +243,8 @@ def test_windowed_halo_zero_guard():
     Xsh = jax.device_put(jnp.asarray(Xt), NamedSharding(mesh, P(None, axis)))
 
     def local(x, *arrs):
-        op = _shard_container(plan, arrs[:6])
-        return windowed_spmm_halo_t(plan, op, x, axis=axis, interpret=True)
+        op = _shard_container(plan, arrs)
+        return windowed_spmm_halo_t(plan, op, x, axis=axis)
 
     fn = jax.jit(
         jax.shard_map(
@@ -283,22 +280,6 @@ def test_program_cache_lru_bound():
     _PROGRAM_CACHE.clear()
 
 
-def test_unified_vmem_revalidation():
-    # plan unification maxes W and unions segment slots; the unified plan
-    # must re-check the mb=8 VMEM floor instead of silently overrunning
-    # (ADVICE r4). Force it with a tiny budget via monkeypatching.
-    from dune_eigensolver_tpu.kernels import gather_spmm
-
-    S = _random_sym_csr(2048, 6, seed=13, bw=400)
-    old = gather_spmm._VMEM_BUDGET
-    try:
-        gather_spmm._VMEM_BUDGET = 60 * 1024  # below any real plan
-        with pytest.raises(ValueError, match="VMEM"):
-            windowed_shard_plan(S, 4, tile=512)
-    finally:
-        gather_spmm._VMEM_BUDGET = old
-
-
 def test_sharded_generalized_general_schwarz_vs_cg():
     # the Schwarz (per-shard banded block) inner engine must match the
     # Jacobi-CG inner and the oracle, and must converge the inner CG in
@@ -313,8 +294,7 @@ def test_sharded_generalized_general_schwarz_vs_cg():
     Sa, Sb = A.to_scipy(), B.to_scipy()
     ref, _ = smallest_generalized(A, B, nev=4, sigma=-1e-3, tol=1e-10)
     kw = dict(
-        nev=4, tol=1e-5, maxiter=60, shift=1e-3, mesh=make_mesh(4),
-        tile=128, cg_rtol=1e-8, cg_maxiter=400,
+        nev=4, tol=1e-5, maxiter=60, shift=1e-3, mesh=make_mesh(4), cg_rtol=1e-8, cg_maxiter=400,
     )
     res_s = sharded_generalized_inverse_general(Sa, Sb, inner="schwarz", **kw)
     res_c = sharded_generalized_inverse_general(Sa, Sb, inner="cg", **kw)
@@ -337,15 +317,15 @@ def test_prebuilt_plan_reuse_matches():
     n = 2048
     S = _random_sym_csr(n, 6, seed=21)
     mesh = make_mesh(4)
-    plan = windowed_shard_plan(largest_operator(S), 4, tile=512)
+    plan = windowed_shard_plan(largest_operator(S), 4)
     r_a = sharded_standard_largest_general(
-        S, nev=4, tol=1e-8, maxiter=300, mesh=mesh, tile=512
+        S, nev=4, tol=1e-8, maxiter=300, mesh=mesh
     )
     r_b = sharded_standard_largest_general(
-        S, nev=4, tol=1e-8, maxiter=300, mesh=mesh, tile=512, plan=plan
+        S, nev=4, tol=1e-8, maxiter=300, mesh=mesh, plan=plan
     )
     r_c = sharded_standard_largest_general(
-        S, nev=4, tol=1e-8, maxiter=300, mesh=mesh, tile=512, plan=plan
+        S, nev=4, tol=1e-8, maxiter=300, mesh=mesh, plan=plan
     )
     np.testing.assert_allclose(
         np.asarray(r_a.eigenvalues), np.asarray(r_b.eigenvalues), rtol=1e-6
@@ -355,14 +335,14 @@ def test_prebuilt_plan_reuse_matches():
     )
     # pencil plans for lobpcg
     plan_a = windowed_shard_plan(
-        pencil_operator(S, None, shift=1e-3), 4, tile=512, m=24
+        pencil_operator(S, None, shift=1e-3), 4
     )
     r_p = sharded_lobpcg_general(
-        S, nev=4, tol=1e-5, maxiter=200, shift=1e-3, mesh=mesh, tile=512,
+        S, nev=4, tol=1e-5, maxiter=200, shift=1e-3, mesh=mesh,
         cg_rtol=1e-2, cg_maxiter=25, plans=(plan_a, None),
     )
     r_q = sharded_lobpcg_general(
-        S, nev=4, tol=1e-5, maxiter=200, shift=1e-3, mesh=mesh, tile=512,
+        S, nev=4, tol=1e-5, maxiter=200, shift=1e-3, mesh=mesh,
         cg_rtol=1e-2, cg_maxiter=25,
     )
     np.testing.assert_allclose(
@@ -384,7 +364,7 @@ def test_sharded_lobpcg_general_schwarz_precond():
     ref, _ = smallest_standard(S, nev=4, sigma=-1e-3, tol=1e-10)
     res_s = sharded_lobpcg_general(
         S, precond="schwarz", nev=4, tol=1e-5, maxiter=300, shift=1e-3,
-        mesh=make_mesh(4), tile=512,
+        mesh=make_mesh(4),
     )
     ev = np.sort(np.asarray(res_s.eigenvalues))[:4]
     assert np.abs(ev - ref).max() / np.abs(ref).max() < 5e-3, (ev, ref)

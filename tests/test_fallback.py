@@ -4,37 +4,8 @@ unconditional verbose engine reporting at umfpacktools.hh:112-123)."""
 
 import numpy as np
 import pytest
-import scipy.sparse as sp
 
-from dune_eigensolver_tpu.sparse.formats import ell_from_scipy
 from dune_eigensolver_tpu.utils.vlog import warn_fallback
-
-
-def _wide_band_ell(n=120_000, bw=55_000, dtype=np.float32):
-    """Every row couples col i-bw and i+bw: full-coverage segment slots at
-    offsets +-bw force a window span far past the VMEM cap (~50k lanes at
-    the mb=8 m-tiling floor)."""
-    i = np.arange(n)
-    rows = np.concatenate([i, i, i])
-    cols = np.concatenate([i, np.clip(i - bw, 0, n - 1), np.clip(i + bw, 0, n - 1)])
-    vals = np.ones(3 * n)
-    S = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
-    return ell_from_scipy(S, dtype=dtype)
-
-
-def test_windowed_overflow_raises_and_engine_warns(capfd):
-    from dune_eigensolver_tpu.kernels.gather_spmm import make_windowed_operands
-    from dune_eigensolver_tpu.solvers.engine import make_engine
-
-    A = _wide_band_ell()
-    with pytest.raises(ValueError):
-        make_windowed_operands(A, m=8)
-    capfd.readouterr()
-    A_int, B_int, layout, spec = make_engine(A, m=128, force_padded=True)
-    err = capfd.readouterr().err
-    assert "FALLBACK:" in err and "windowed-gather" in err
-    # and the engine really did fall back to the plain representation
-    assert layout is None and not spec.padded and A_int is A
 
 
 def test_pick_inner_downgrade_warns(capfd):

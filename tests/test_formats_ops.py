@@ -114,7 +114,7 @@ def test_weak_scaling_harness():
 
     from dune_eigensolver_tpu.bench.scaling import _EFF_FLOOR, weak_scaling_spmm
 
-    # large enough that the two-K slope sits above the timer noise floor on
+    # large enough that the per-iteration time sits above the timer floor on
     # a CPU host (a 256-row strip measured under 100 ns/iter and tripped
     # the eff=nan guard); the guard itself is unit-tested in test_dist.py
     recs = weak_scaling_spmm(

@@ -1,7 +1,7 @@
 """Nested-iteration LOBPCG (solvers/nested.py): coarse-hierarchy
 derivation, prolongation seeding, and end-to-end spectra vs the analytic
-Dirichlet eigenvalues. The TPU-scale measurement lives in
-experiments/ns_nested.py (3.00 s -> 1.08 s on the 10.1M-dof north star)."""
+Dirichlet eigenvalues. The full-size run (the 10.1M-dof north star) is a
+phase of chip_smoke.py."""
 
 import numpy as np
 import pytest

@@ -104,9 +104,9 @@ def test_spmm_t_padded_dispatch():
     A = problems.laplacian_dirichlet_2d(16, dtype=np.float32)
     n = A.shape[0]
     Xt = jax.random.normal(jax.random.PRNGKey(6), (8, n), dtype=jnp.float32)
-    L = PaddedLayout(n, 8, A.offsets, tile=256)
+    L = PaddedLayout(n, 8, A.offsets)
     Ap = L.pad_operator(A)
-    Yp = spmm_t(Ap, L.pad(Xt))  # CPU -> interpret mode
+    Yp = spmm_t(Ap, L.pad(Xt))  # interpret mode (tests/conftest.py)
     Yref = spmm(A, Xt.T).T
     np.testing.assert_allclose(
         np.asarray(L.unpad(Yp)), np.asarray(Yref), rtol=1e-5, atol=1e-5
@@ -116,8 +116,8 @@ def test_spmm_t_padded_dispatch():
 # --- spectral fallback for numerically rank-deficient blocks -----------------
 # A nested-iteration seed (q0 from a coarser grid) produces search-basis
 # blocks whose f32 Gram is rank-deficient below accumulation roundoff; the
-# pure-Cholesky whitening NaN'd at n=10M no matter the relative eps floor
-# (experiments/ns_nested.py). _whiten_apply cond-gates an eigh-based
+# pure-Cholesky whitening NaN'd at n=10M no matter the relative eps floor.
+# _whiten_apply cond-gates an eigh-based
 # clipped whitening that fires only when the Cholesky comes out non-finite.
 
 

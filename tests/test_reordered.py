@@ -65,3 +65,19 @@ def test_standard_inverse_on_scrambled_ell():
     res = standard_inverse(A, nev=4, tol=1e-10, maxiter=500, shift=-1e-3)
     anal = eigenvalues_laplace_dirichlet_2d(N)[:4]
     np.testing.assert_allclose(np.asarray(res.eigenvalues), anal, atol=1e-6)
+
+
+def test_rcm_bandwidth_keeps_an_already_banded_ordering():
+    # lexicographic grid operators are banded already; RCM would widen
+    # them (its level sets run along the grid's diagonals)
+    A, _ = problems.elasticity_2d(12, dtype=np.float64)
+    S = A.to_scipy().tocoo()
+    natural = int(np.abs(S.row - S.col).max())
+    perm, bw = rcm_bandwidth(A)
+    assert bw == natural
+    np.testing.assert_array_equal(perm, np.arange(A.shape[0]))
+    aux, fn = rcm_banded_inverse_factory(A, C=64, dtype=np.float64)
+    B = np.random.default_rng(2).standard_normal((A.shape[0], 4))
+    X = np.asarray(fn(aux, B))
+    Xref = spl.spsolve(A.to_scipy().tocsc(), B)
+    assert np.abs(X - Xref).max() / np.abs(Xref).max() < 1e-10
